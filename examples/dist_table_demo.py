@@ -26,7 +26,6 @@ import jax.numpy as jnp
 
 import radix_sort_tpu as rst
 from radix_sort_tpu.parallel import runtime
-from radix_sort_tpu.utils.timing import sync
 
 
 def build_pipeline(mesh, min_qty: int, max_groups: int):
@@ -62,9 +61,9 @@ def main():
     ts = jnp.asarray(rng.integers(0, 1 << 30, n).astype(np.uint32))
 
     run = build_pipeline(mesh, min_qty=100, max_groups=args.symbols * 2)
-    sync(run(sym, qty, ts))  # compile
+    jax.block_until_ready(run(sym, qty, ts))  # compile
     t0 = time.perf_counter()
-    s, cnt, vol, peak, num = sync(run(sym, qty, ts))
+    s, cnt, vol, peak, num = jax.block_until_ready(run(sym, qty, ts))
     dt_s = time.perf_counter() - t0
     num = int(num)
     print(f"{n:,} trades over {nshards} shards -> {num} symbols "

@@ -23,7 +23,6 @@ import jax.numpy as jnp
 
 import radix_sort_tpu as rst
 from radix_sort_tpu.utils import distributions as D
-from radix_sort_tpu.utils.timing import sync
 
 
 def build_query(n_accounts: int, join_capacity: int):
@@ -74,9 +73,10 @@ def main(argv=None):
     threshold = jnp.uint32(1 << 14)
 
     q = build_query(args.accounts, join_capacity=int(args.n * 1.1))
-    sync(q(t_keys, t_amounts, a_keys, a_tier, threshold))  # compile
+    q_args = (t_keys, t_amounts, a_keys, a_tier, threshold)
+    jax.block_until_ready(q(*q_args))  # compile
     t0 = time.perf_counter()
-    uk, sums, n_groups, overflow = sync(q(t_keys, t_amounts, a_keys, a_tier, threshold))
+    uk, sums, n_groups, overflow = jax.block_until_ready(q(*q_args))
     dt = time.perf_counter() - t0
     n_groups = int(n_groups)
     print(f"query over {args.n} rows in {dt*1e3:.1f} ms -> {n_groups} groups"

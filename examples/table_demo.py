@@ -22,7 +22,6 @@ import jax
 import jax.numpy as jnp
 
 import radix_sort_tpu as rst
-from radix_sort_tpu.utils.timing import sync
 
 
 def build_pipeline(min_qty: int):
@@ -58,9 +57,9 @@ def main():
 
     run = build_pipeline(min_qty=250)
     args_dev = tuple(jnp.asarray(a) for a in (sym, qty, ts, q_ts, q_px))
-    sync(run(*args_dev))  # compile
+    jax.block_until_ready(run(*args_dev))  # compile
     t0 = time.perf_counter()
-    out = sync(run(*args_dev))
+    out = jax.block_until_ready(run(*args_dev))
     dt = time.perf_counter() - t0
     s, cnt_, notional, num = out
     num = int(num)

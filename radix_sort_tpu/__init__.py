@@ -1,6 +1,6 @@
-"""radix_sort_tpu — TPU-native vectorized query-execution engine.
+"""radix_sort_tpu — a sort-centred vectorized query-execution engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference Rust crate jgrodzki/radix_sort (stable LSD radix sort over the
 full numeric type matrix), extended per the north star with distributed
 shuffle over device meshes and the query-operator set (filter, hash join,

@@ -2,8 +2,8 @@
 mod.rs:63-65; here the knobs are explicit, documented, and overridable).
 
 Consumers read :func:`get` at call time, so :func:`override` (a context
-manager) retunes the engine without re-importing — used by tests to shrink
-the Pallas pipeline onto interpret-mode sizes and by the demo CLI.
+manager) retunes the engine without re-importing — used by tests and the
+demo CLI.
 """
 
 from __future__ import annotations
@@ -16,36 +16,10 @@ __all__ = ["EngineConfig", "DEFAULT", "get", "set_config", "override"]
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Tuning knobs of the single-chip pipeline and engine selection.
+    """Engine selection knobs."""
 
-    Defaults reflect the v5e measurements in scratch/NOTES.md.
-    """
-
-    # sample-sort pipeline (ops/sample_sort.py)
-    chunk_elems: int = 0  # local-sort row length m; 0 = auto by input size
-    # (rowsort cost grows with log^2 m, extract append cost with N*K/m:
-    # 4096 balances at <=64M rows, 8192 above — probe r2c + 125M bench)
-    buckets_per_round: int = 64  # per-round bucket ceiling (the tiered
-    # extract's per-append cost cliffs above ~K=64: probe r2c)
-    capacity_factor: float = 1.15  # per-region slack over the balanced size
-    round1_samples_per_chunk: int = 8  # splitter oversampling, round 1
-    round2_samples: int = 512  # splitter samples per bucket, round 2
-
-    final_chunk_target: int = 2000  # planner aims leaf regions at this size
-    # (leaf cap = base + max(base//8, 512) sampling margin, 1024-rounded)
-
-    # engine selection (ops/sort.py, ops/pallas_sort.py)
-    min_pipeline_n: int = 1 << 18  # below this the comparator sort wins
+    # engine selection (ops/sort.py)
     default_implementation: str = "comparator"  # what "auto" resolves to
-
-    def pipeline_kwargs(self) -> dict:
-        return dict(
-            m=self.chunk_elems,
-            K=self.buckets_per_round,
-            alpha=self.capacity_factor,
-            samples1=self.round1_samples_per_chunk,
-            samples2=self.round2_samples,
-        )
 
 
 DEFAULT = EngineConfig()
@@ -66,8 +40,8 @@ def set_config(cfg: EngineConfig) -> None:
 def override(**kwargs):
     """Temporarily replace configuration fields::
 
-        with config.override(chunk_elems=512, buckets_per_round=4):
-            rst.sort(x, implementation="pallas")
+        with config.override(default_implementation="oracle"):
+            rst.sort(x)
     """
     global _active
     prev = _active

@@ -13,7 +13,7 @@ the calendar functions below do real work. Those are vectorized
 translations of Howard Hinnant's branchless civil-calendar algorithms
 (https://howardhinnant.github.io/date_algorithms.html, public domain):
 pure integer adds/multiplies/floor-divides — no lookup tables, no
-data-dependent control flow — exactly the shape the VPU wants.
+data-dependent control flow — exactly the shape vectorized device code wants.
 
 ``Table``/``DistTable`` auto-convert ``numpy.datetime64`` input columns
 (day-or-coarser units -> date32 days; finer -> int64 microseconds) and

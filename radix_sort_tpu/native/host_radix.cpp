@@ -1,6 +1,6 @@
 // Host-side native runtime: multi-threaded stable LSD radix sort.
 //
-// The TPU framework's host component: fast data preparation, dataset
+// The engine's host component: fast data preparation, dataset
 // generation, and host-side verification for arrays too large to oracle with
 // a comparison sort. Functionally equivalent to the reference crate's
 // production engine (src/radix_sort/mod.rs:61-176) — stable 8-bit LSD passes

@@ -1,6 +1,6 @@
 """NULL-value support: per-column null masks over the static-shape engine.
 
-SQL NULLs on a TPU engine cannot be sentinel values (every bit pattern of
+SQL NULLs on a static-shape engine cannot be sentinel values (every bit pattern of
 every dtype is a legal key) and cannot be dynamic shapes (XLA traces once).
 The representation here is a companion BOOL MASK per nullable column
 (True = NULL) with one invariant the whole engine relies on:

@@ -3,7 +3,7 @@ exact quantiles.
 
 These extend the north-star query-operator set (filter / hash_join /
 hash_aggregate, BASELINE.json) with the remaining relational algebra a
-query-engine user expects, each built the TPU way — one stable variadic
+query-engine user expects, each built the same way — one stable variadic
 sort plus vectorized segment math, no per-row control flow (the reference
 crate is sort-only; these are engine capabilities layered on its sort
 semantics, src/radix_sort/mod.rs:61-176).

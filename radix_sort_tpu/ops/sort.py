@@ -1,6 +1,6 @@
 """Public sort API (the L3 layer).
 
-TPU-native equivalent of the reference's extension traits on slices
+Array equivalent of the reference's extension traits on slices
 (``RadixSort::radix_sort`` at mod.rs:18-20 and the ``RadixSortCopyOnly``
 variant ladder at mod.rs:22-38), as pure functions over arrays:
 
@@ -10,8 +10,8 @@ variant ladder at mod.rs:22-38), as pure functions over arrays:
     counting_sort(x)           -- single-pass counting sort for uint8
 
 ``implementation`` selects an engine from the variant ladder; "auto" picks
-the fastest available for the backend. All engines produce bit-identical
-output (enforced by tests against the oracle).
+the active config's default (the comparator sort). All engines produce
+bit-identical output (enforced by tests against the oracle).
 """
 
 from __future__ import annotations
@@ -42,8 +42,6 @@ __all__ = [
 
 def _words_engines():
     # name -> (sort_words, argsort_words)
-    from radix_sort_tpu.ops import pallas_sort  # local import: optional backend
-
     return {
         "comparator": (
             # keys-only sort: equal words are indistinguishable, so the
@@ -64,22 +62,17 @@ def _words_engines():
             xla_radix.radix_sort_words_rank,
             xla_radix.radix_argsort_words_rank,
         ),
-        "pallas": (
-            pallas_sort.sort_words,
-            pallas_sort.argsort_words,
-        ),
     }
 
 
 IMPLEMENTATIONS = (
-    "auto", "comparator", "oracle", "xla_argsort", "xla_rank", "pallas",
+    "auto", "comparator", "oracle", "xla_argsort", "xla_rank",
 )
 
 
 def _resolve(implementation: str) -> str:
     if implementation == "auto":
-        # "auto" follows the active config's default engine (measured per
-        # chip; scratch/NOTES.md tracks the comparator/pipeline crossover)
+        # "auto" follows the active config's default engine
         return config.get().default_implementation
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(
@@ -140,16 +133,8 @@ def sort_pairs(keys: jnp.ndarray, values: jnp.ndarray, *,
             f"keys and values must share the leading axis, got {keys.shape} vs {values.shape}"
         )
     impl = _resolve(implementation)
-    if impl == "pallas":
-        from radix_sort_tpu.ops import pallas_sort
-
-        words, out_vals = pallas_sort.sort_pairs_words(
-            _dir(K.encode(keys), descending), values
-        )
-        return K.decode(_dir(words, descending), keys.dtype), out_vals
     if impl == "comparator":
-        # one variadic sort — argsort + two x[perm] gathers run ~30x slower
-        # than the sort itself on this chip (gathers are ~2us/element)
+        # one variadic sort carries the payload; no argsort + gathers
         words, out_vals = jax.lax.sort(
             [_dir(K.encode(keys), descending), values], num_keys=1,
             is_stable=True
@@ -169,7 +154,7 @@ def sort_limbs(key_words, value_words=(), *, descending: bool = False,
     """Stable co-sort by a multi-word big-endian unsigned key.
 
     ``key_words``: most-significant-first uint32 limbs (any count — this is
-    how arbitrarily wide keys sort on 32-bit TPU lanes, covering the
+    how arbitrarily wide keys sort as 32-bit words, covering the
     reference's u128/usize impls, radix_digits.rs:37-53). ``value_words``:
     additional uint32 arrays carried along. Returns the co-sorted lists
     ``(key_words, value_words)``.
@@ -182,19 +167,12 @@ def sort_limbs(key_words, value_words=(), *, descending: bool = False,
     for a in key_words + value_words:
         if a.shape[0] != n or a.dtype != jnp.uint32:
             raise ValueError("all limbs must be uint32 arrays of equal length")
-    impl = _resolve(implementation)
     nk = len(key_words)
     if descending:
         # complementing every limb reverses the lexicographic order exactly
         key_words = [~w for w in key_words]
-    if impl == "pallas" and n >= config.get().min_pipeline_n:
-        from radix_sort_tpu.ops import sample_sort
-
-        out = sample_sort.sample_sort_words(key_words + value_words, nk)
-    else:
-        out = jax.lax.sort(
-            key_words + value_words, num_keys=nk, is_stable=True
-        )
+    _resolve(implementation)  # validate; one fused variadic sort either way
+    out = jax.lax.sort(key_words + value_words, num_keys=nk, is_stable=True)
     kw_out = [~w for w in out[:nk]] if descending else list(out[:nk])
     return kw_out, list(out[nk:])
 
@@ -242,7 +220,7 @@ def sort_segments(keys: jnp.ndarray, offsets: jnp.ndarray,
     internally sorted; equal keys keep input order (``descending`` reverses
     key order within each segment only).
 
-    TPU-native formulation: one fused multi-word stable sort by
+    Formulation: one fused multi-word stable sort by
     (segment-id, key) — segment ids are non-decreasing over rows, so the
     global sort leaves segments in place. Segment ids come from a cumsum
     over boundary scatters, not a per-row binary search.
@@ -331,8 +309,8 @@ def top_k(keys: jnp.ndarray, k: int, *arrays: jnp.ndarray,
 def sort128(hi, lo, *, signed: bool = False, implementation: str = "auto"):
     """Stable sort of 128-bit keys held as (hi, lo) 64-bit words.
 
-    The reference's u128/i128 key types (radix_digits.rs:37-53, 87-93) on a
-    32-bit-lane TPU: keys travel as 4 big-endian uint32 limbs
+    The reference's u128/i128 key types (radix_digits.rs:37-53, 87-93):
+    keys travel as 4 big-endian uint32 limbs
     (:func:`radix_sort_tpu.keys.encode128`). ``signed`` selects i128 (hi is
     int64). Returns the sorted (hi, lo) pair.
     """

@@ -2,9 +2,9 @@
 
 The reference keeps an optimization ladder ``radix_sort0..5`` documenting how
 its production design was reached (src/radix_sort/mod.rs:178-571). This is
-the TPU analogue: pure-XLA formulations of the multi-pass LSD pipeline
-(histogram -> exclusive scan -> stable scatter), each one step closer to the
-Pallas production engine, all checked against the oracle. None of these is
+the array analogue: pure-XLA formulations of the multi-pass LSD pipeline
+(histogram -> exclusive scan -> stable scatter), all checked against the
+oracle. None of these is
 the fast path -- they document the pass structure and serve as in-repo
 cross-checks that run on any backend.
 
@@ -119,9 +119,8 @@ def counting_sort_u8(x: jnp.ndarray) -> jnp.ndarray:
     mod.rs:40-59): histogram then emit each value count[v] times.
 
     Both phases are compare-sums (XLA fuses the (n, 256) one-hots into the
-    reductions): scatter-add histograms and repeat/searchsorted emission
-    lower to element scatters/gathers, which run ~30x slower than streaming
-    compares on this chip (scratch/NOTES.md). output[i] = #{v : end[v] <= i}
+    reductions), where scatter-add histograms and repeat/searchsorted
+    emission would lower to element scatters/gathers. output[i] = #{v : end[v] <= i}
     — the number of value bins exhausted before position i."""
     assert x.dtype == jnp.uint8, x.dtype
     n = x.shape[0]

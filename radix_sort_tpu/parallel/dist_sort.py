@@ -1,9 +1,9 @@
 """Multi-chip distributed sort: ragged bucket exchange over a device mesh.
 
-This is the TPU-native replacement for the reference's shared-memory thread
-orchestration (src/radix_sort/mod.rs:90-168): instead of OS threads over one
-address space, rows are sharded across mesh devices and redistributed with
-XLA collectives riding ICI/DCN.
+This replaces the reference's shared-memory thread orchestration
+(src/radix_sort/mod.rs:90-168): instead of OS threads over one address
+space, rows are sharded across mesh devices and redistributed with XLA
+collectives (NCCL over NVLink on GPUs).
 
 Algorithm (single exchange round — parallel sort by regular sampling, with
 composite tie-broken splitters):
@@ -68,8 +68,8 @@ def _num_samples(n_local: int, num_devices: int) -> int:
     ``m = 8 * P**2`` bounds the max bucket at ``n/P * (1 + 1/8)`` plus the
     sampling-gap slack (see :func:`exchange_capacity`); capped by the shard
     size (m = n_local degenerates to exact splitters) and floored for tiny
-    meshes. Note: m grows as P**2, which is fine for ICI-scale meshes; a
-    DCN-scale pod would want a hierarchical sketch instead.
+    meshes. Note: m grows as P**2, which is fine for one host's devices; a
+    mesh of many hosts would want a hierarchical sketch instead.
     """
     return max(64, min(n_local, 8 * num_devices * num_devices))
 
@@ -89,13 +89,17 @@ def exchange_capacity(n_local: int, num_devices: int) -> int:
     gap = -(-n_local // m) + 1
     cap = n_local + (num_devices * num_devices * n_local) // m
     cap += 2 * num_devices * gap + num_devices + 64
-    return -(-cap // 8) * 8  # round to sublane multiple
+    return -(-cap // 8) * 8  # round up to a multiple of 8
 
 
 def _regular_sample_positions(n_local: int, m: int) -> jnp.ndarray:
     """Midpoints of the m equal strides through a sorted shard."""
-    pos = (jnp.arange(m, dtype=jnp.int32) * n_local) // m
-    return pos + n_local // (2 * m)
+    # i * n_local // m without the int32 product (which wraps once
+    # n_local * m >= 2**31): n_local = q * m + r, so it is i*q + i*r // m
+    # (i*r < m*m, which fits int32 for every m = 8 * P**2 with P <= 75)
+    q, r = divmod(n_local, m)
+    i = jnp.arange(m, dtype=jnp.int32)
+    return i * np.int32(q) + (i * np.int32(r)) // m + n_local // (2 * m)
 
 
 def _sketch_quantiles(samp_ws, samp_p, axis_name, num_devices, per_shard):
@@ -144,8 +148,7 @@ def _below_starts(s_limbs, gpos, splitter_ws, splitter_p):
     """Run-start offsets: count of rows lexicographically below each
     composite splitter (the shard is sorted by (key limbs, position), so
     each destination's rows are a contiguous slice). One compare-sum per
-    splitter — a searchsorted has no multi-key form and gathers are slow
-    on TPU."""
+    splitter — a searchsorted has no multi-key form."""
     below = _lex_below(
         [w[:, None] for w in s_limbs], gpos[:, None],
         [sw[None, :] for sw in splitter_ws], splitter_p[None, :],
@@ -219,7 +222,9 @@ def _gather_exchange(sorted_ops, sentinels, bounds, axis_name, num_devices,
         gpos = jax.lax.all_gather(gpos_local, axis_name, tiled=True)
 
     kind, lo, hi = bounds
-    if kind == "composite":
+    if num_devices == 1:
+        valid = jnp.ones((n_total,), jnp.bool_)  # one bucket: no splitters
+    elif kind == "composite":
         sws, sp = lo
         ks = g[:num_keys]
         i_lo = jnp.clip(me - 1, 0, num_devices - 2)
@@ -236,7 +241,8 @@ def _gather_exchange(sorted_ops, sentinels, bounds, axis_name, num_devices,
         ge_lo = (me == 0) | (w >= sk[i_lo])
         i_hi = jnp.clip(me, 0, num_devices - 2)
         lt_hi = (me == num_devices - 1) | (w < sk[i_hi])
-    valid = ge_lo & lt_hi
+    if num_devices > 1:
+        valid = ge_lo & lt_hi
 
     invalid = (~valid).astype(jnp.int32)
     srt = jax.lax.sort([invalid] + g, num_keys=1 + num_keys, is_stable=True)
@@ -294,10 +300,18 @@ def _ragged_exchange(arrays, sentinels, starts, axis_name, num_devices, capacity
     return outs, recv_sizes.sum(), overflow, oo_me
 
 
+# platforms whose XLA backend lowers ragged-all-to-all. XLA:CPU does not
+# ("not supported by XLA:CPU ThunkEmitter"); XLA:GPU does (chip_smoke.py
+# runs the ragged exchange on the card on every run).
+RAGGED_EXCHANGE_PLATFORMS = ("gpu",)
+
+
 def default_exchange() -> str:
-    """ragged-all-to-all on TPU (exact counts on the ICI wire); the
-    all_gather emulation elsewhere (XLA:CPU has no ragged-all-to-all)."""
-    return "ragged" if jax.default_backend() == "tpu" else "gather"
+    """ragged-all-to-all (exact counts on the wire) where the backend lowers
+    it; the all_gather emulation elsewhere."""
+    if jax.default_backend() in RAGGED_EXCHANGE_PLATFORMS:
+        return "ragged"
+    return "gather"
 
 
 def _pipelined_exchange(words, values, axis_name, num_devices, capacity,
@@ -368,8 +382,7 @@ def _pipelined_exchange(words, values, axis_name, num_devices, capacity,
             src = ge.astype(jnp.int32).sum(axis=1) - 1  # oo[0]==0 -> src >= 0
             seg_base = jnp.max(jnp.where(ge, oo[None, :], 0), axis=1)
             # reconstruct the monotone surrogate: source-major, stripe,
-            # then position within the source's segment (no device gathers —
-            # they are unusably slow here, scratch/NOTES.md)
+            # then position within the source's segment (no device gathers)
             g_sur = (
                 src * np.int32(n_local) + np.int32(s * sl) + (rows - seg_base)
             )
@@ -528,6 +541,10 @@ def distributed_sort(
     result falls back to a replicated global sort laid out identically, so
     the output is ALWAYS exact; ``overflow`` then reports that the fallback
     path was taken.
+
+    ``exchange``: None picks :func:`default_exchange` (and skips the
+    exchange on a 1-device mesh); a named exchange ("ragged", "gather",
+    "pipelined") runs even on one device.
     """
     limbs, decode = _encode_key_arg(keys, descending)
     ows, _, counts, overflow = _dist_sort_impl(
@@ -620,8 +637,7 @@ def _encode_key_arg(keys, descending=False):
 
 def _global_sort_fallback(limbs, val_ops, num_devices, capacity, sentinels):
     """Replicated exact path in the padded per-device layout (overflow
-    insurance — mirrors the single-chip pipeline's comparator fallback,
-    ops/sample_sort.py)."""
+    insurance)."""
     n = limbs[0].shape[0]
     n_local = n // num_devices
     nk = len(limbs)
@@ -691,9 +707,10 @@ def _dist_sort_impl(limbs, values, mesh, axis_name, capacity=None,
             return None
         return list(ovs) if multi_v else ovs[0]
 
-    if num_devices == 1:
+    if num_devices == 1 and exchange is None:
         # degenerate mesh: no exchange, just the local stable sort in the
-        # same padded-layout contract
+        # same padded-layout contract (an explicitly named exchange still
+        # runs, so one device can exercise the exchange code)
         ows, ovs, cnt = _global_sort_fallback(
             limbs, val_ops, 1, capacity, sentinels
         )

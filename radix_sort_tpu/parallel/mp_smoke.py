@@ -3,7 +3,7 @@
 The reference is a single-process shared-memory program — its only
 synchronization is a thread join (src/radix_sort/mod.rs:103-108). The
 north-star equivalent is the engine's collectives riding a REAL process
-boundary (DCN-shaped): this module is the per-process worker that brings
+boundary (multi-host-shaped): this module is the per-process worker that brings
 up `jax.distributed` via :func:`runtime.initialize_multihost`, builds one
 global mesh spanning every process's devices, and runs the distributed
 engine across it with full numpy-oracle checks:

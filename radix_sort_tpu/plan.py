@@ -13,8 +13,8 @@ compacts rows but never shrinks an array, so "filter early" buys nothing
 by itself. What costs is (a) the NUMBER of variadic-sort passes (every
 relational verb is one or more stable sorts — filter, sort_by, group-by,
 join, window all sort) and (b) the WIDTH each sort carries (every live
-column rides every sort as an operand; measured sort cost grows with
-operand words, scratch/NOTES.md). The passes therefore:
+column rides every sort as an operand, and sort cost grows with operand
+words). The passes therefore:
 
   - **fuse filters** — adjacent predicates AND into one compaction sort;
   - **fuse sorts** — ``sort_by(a).sort_by(b)`` is one stable composite

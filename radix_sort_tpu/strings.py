@@ -1,6 +1,6 @@
 """Dictionary-encoded string columns.
 
-TPU-idiomatic strings: the device never sees a character. A string column
+Device-friendly strings: the device never sees a character. A string column
 is a ``uint32`` code array on device plus a host-side sorted vocabulary
 (the dictionary). Because the vocabulary is sorted, codes are
 ORDER-PRESERVING — every engine operator (sort, group-by, join, distinct,

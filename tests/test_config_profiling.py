@@ -2,29 +2,21 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from radix_sort_tpu.config import DEFAULT, EngineConfig
-from radix_sort_tpu.utils.profiling import PhaseTimer, speed_of_light_s
+from radix_sort_tpu.config import DEFAULT
+from radix_sort_tpu.utils.profiling import (
+    PEAK_HBM_BYTES_PER_S, PhaseTimer, peak_hbm_bytes_per_s, speed_of_light_s,
+)
 
-
-def test_config_pipeline_kwargs_round_trip():
-    cfg = EngineConfig(chunk_elems=4096, buckets_per_round=32)
-    kw = cfg.pipeline_kwargs()
-    assert kw == dict(
-        m=4096,
-        K=32,
-        alpha=DEFAULT.capacity_factor,
-        samples1=DEFAULT.round1_samples_per_chunk,
-        samples2=DEFAULT.round2_samples,
-    )
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_config_is_frozen():
     import dataclasses
-    import pytest
 
     with pytest.raises(dataclasses.FrozenInstanceError):
-        DEFAULT.chunk_elems = 1
+        DEFAULT.default_implementation = "oracle"
 
 
 def test_phase_timer_report(rng):
@@ -33,9 +25,32 @@ def test_phase_timer_report(rng):
     t.time_fn("add", lambda a: a + 1, x, bytes_moved=x.size * 8)
     with t.phase("noop"):
         pass
-    rep = t.report()
+    rep = t.report(H100)
     assert "add" in rep and "total" in rep and "GB/s" in rep
 
 
 def test_speed_of_light_monotone():
-    assert speed_of_light_s(2_000_000) == 2 * speed_of_light_s(1_000_000)
+    assert speed_of_light_s(2_000_000, H100) == 2 * speed_of_light_s(
+        1_000_000, H100)
+
+
+def test_peak_table_knows_the_h100():
+    # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3
+    assert peak_hbm_bytes_per_s(H100) == 3.35e12
+    assert speed_of_light_s(3_350_000_000, H100) == pytest.approx(1e-3)
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H200", "NVIDIA A100-SXM4-80GB", ""])
+def test_peak_table_rejects_unknown_kinds(kind):
+    assert kind not in PEAK_HBM_BYTES_PER_S
+    with pytest.raises(ValueError, match="no published memory bandwidth"):
+        peak_hbm_bytes_per_s(kind)
+    with pytest.raises(ValueError):
+        PhaseTimer().report(kind)
+
+
+def test_peak_table_rejects_this_cpu_device():
+    import jax
+
+    with pytest.raises(ValueError):
+        peak_hbm_bytes_per_s(jax.devices()[0].device_kind)

@@ -1,5 +1,5 @@
 """Distributed sort tests on the 8-virtual-device CPU mesh (the fake-backend
-pattern SURVEY.md section 4 prescribes for collectives without a TPU).
+pattern SURVEY.md section 4 prescribes for collectives without a GPU).
 
 The composite-splitter partition (dist_sort.py) must sort EVERY distribution
 — including the reference's duplicate-heavy StepUniform regime
@@ -308,9 +308,9 @@ class TestDistributedMultiLimb:
 
 
 def test_below_starts_lexicographic_oracle(rng):
-    # unit oracle for the ragged path's run-start computation (the TPU-only
-    # exchange): counts below each (limb..., pos) splitter must equal the
-    # numpy lexicographic rank
+    # unit oracle for the ragged path's run-start computation (the exchange
+    # XLA:CPU cannot run): counts below each (limb..., pos) splitter must
+    # equal the numpy lexicographic rank
     n, p = 512, 8
     a = rng.integers(0, 4, n).astype(np.uint32)
     b = rng.integers(0, 6, n).astype(np.uint32)

@@ -640,7 +640,7 @@ class TestRepeat:
         assert not np.asarray(out)[len(ref):].any()
 
     def test_kernel_path_high_fanout(self, rng):
-        # total_size >= 64 * n engages the broadcast-fill kernel
+        # high mean fanout (total_size >= 64 * n) through the gather path
         n = 32
         vals = rng.integers(0, 2**31, n).astype(np.uint32)
         counts = rng.integers(50, 90, n).astype(np.int32)
@@ -682,8 +682,8 @@ class TestRepeat:
 
 
 class TestHighFanoutKernelPath:
-    """capacity >= 64 * n_left engages the Pallas run-append expansion
-    (interpret mode off-TPU); results must match the gather path exactly."""
+    """High-fanout joins (capacity >= 64 * n_left) through the gather
+    expansion path must match the oracle exactly."""
 
     def _join(self, lk, lv, rk, rv, capacity, how="inner"):
         return query.hash_join(
@@ -697,7 +697,7 @@ class TestHighFanoutKernelPath:
         lv = rng.integers(0, 2**31, n_l).astype(np.uint32)
         rk = np.repeat(np.arange(n_l, dtype=np.uint32), fan)
         rv = rng.integers(0, 2**31, n_l * fan).astype(np.uint32)
-        cap = n_l * fan + 64  # engages the kernel (>= 64*n_l), > total
+        cap = n_l * fan + 64  # high fanout (>= 64*n_l), > total
         jk, jlv, jrv, cnt, ovf = self._join(lk, lv, rk, rv, cap)
         cnt = int(cnt)
         assert not bool(ovf) and cnt == n_l * fan
@@ -719,7 +719,7 @@ class TestHighFanoutKernelPath:
         lv = np.array([70, 30, 990], np.uint32)
         rk = np.repeat(np.array([3, 7], np.uint32), 100)
         rv = rng.integers(1, 2**31, 200).astype(np.uint32)
-        cap = 256  # >= 64*3 engages the kernel; > total 201
+        cap = 256  # >= 64*3: high fanout; > total 201
         jk, jlv, jrv, cnt, ovf = self._join(lk, lv, rk, rv, cap, how="left")
         cnt = int(cnt)
         assert not bool(ovf) and cnt == 201
@@ -755,9 +755,7 @@ class TestHighFanoutKernelPath:
         np.testing.assert_array_equal(np.asarray(jrv)[:70], rv[rk == 0])
 
     def test_u64_values_two_calls(self, rng):
-        # 8-byte integer values ride the kernel as hi/lo u32 limb words
-        # over two scheduled calls (round 3: the 4-byte-operand limit is
-        # lifted); oracle = the gather path's semantics
+        # 8-byte integer values at high fanout
         n_l, fan = 8, 70
         lk = np.arange(n_l, dtype=np.uint32)
         lv = rng.integers(0, 2**63, n_l).astype(np.uint64)
@@ -789,8 +787,7 @@ class TestHighFanoutKernelPath:
         )
 
     def test_value_lists_multi_call(self, rng):
-        # column-list payloads on both sides schedule one call per right
-        # word; left words pack two per call
+        # column-list payloads on both sides at high fanout
         n_l, fan = 8, 70
         lk = np.arange(n_l, dtype=np.uint32)
         lv1 = rng.integers(0, 2**31, n_l).astype(np.uint32)

@@ -91,68 +91,6 @@ def test_sort_already_sorted_and_reverse(impl):
     )
 
 
-class TestPallasPublicAPI:
-    """The Pallas pipeline engine through the PUBLIC API (rst.sort /
-    sort_pairs / argsort), shrunk onto interpret-mode sizes with
-    config.override so the pipeline actually engages (N >= min_pipeline_n).
-    Round-1 flagged this engine as tested only at the words layer."""
-
-    N = 9000  # odd-ish: exercises the pipeline's sentinel padding
-    CFG = dict(chunk_elems=512, buckets_per_round=4, min_pipeline_n=4096,
-               round2_samples=64)
-
-    def _cfg(self):
-        return rst.config.override(**self.CFG)
-
-    @pytest.mark.parametrize(
-        "dtype", [np.uint8, np.uint32, np.uint64, np.int32, np.int64]
-    )
-    def test_int_matrix(self, rng, dtype):
-        x = _rand_ints(rng, dtype, self.N)
-        with self._cfg():
-            got = np.asarray(rst.sort(jnp.asarray(x), implementation="pallas"))
-        assert np.array_equal(got, np.sort(x, kind="stable"))
-
-    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-    def test_float_specials(self, rng, dtype):
-        x = (rng.random(self.N) * 2.0 - 1.0).astype(dtype)
-        specials = np.array([0.0, -0.0, np.nan, np.inf, -np.inf], dtype)
-        x[rng.integers(0, self.N, size=specials.size)] = specials
-        with self._cfg():
-            got = np.asarray(rst.sort(jnp.asarray(x), implementation="pallas"))
-        bits = 32 if dtype == np.float32 else 64
-        sdt = np.int32 if bits == 32 else np.int64
-        udt = np.uint32 if bits == 32 else np.uint64
-        b = x.view(sdt)
-        tc = b ^ ((b >> (bits - 1)).view(udt) >> np.uint8(1)).view(sdt)
-        want = x[np.argsort(tc, kind="stable")]
-        assert np.array_equal(got.view(udt), want.view(udt))
-
-    def test_pairs_stability(self, rng):
-        keys = rng.integers(0, 16, size=self.N, dtype=np.uint32)
-        vals = np.arange(self.N, dtype=np.uint32)
-        with self._cfg():
-            k, v = rst.sort_pairs(
-                jnp.asarray(keys), jnp.asarray(vals), implementation="pallas"
-            )
-        order = np.argsort(keys, kind="stable")
-        assert np.array_equal(np.asarray(k), keys[order])
-        assert np.array_equal(np.asarray(v), vals[order])
-
-    def test_argsort(self, rng):
-        x = _rand_ints(rng, np.int32, self.N)
-        with self._cfg():
-            perm = np.asarray(rst.argsort(jnp.asarray(x), implementation="pallas"))
-        assert np.array_equal(perm, np.argsort(x, kind="stable"))
-
-    def test_auto_honors_config_default(self, rng):
-        # the dead-knob fix: default_implementation now drives "auto"
-        x = _rand_ints(rng, np.uint32, 2048)
-        with rst.config.override(default_implementation="oracle"):
-            got = np.asarray(rst.sort(jnp.asarray(x)))
-        assert np.array_equal(got, np.sort(x, kind="stable"))
-
-
 class TestSort128:
     """128-bit keys (reference radix_digits.rs:37-53, 87-93): u128/i128 as
     (hi, lo) 64-bit words, sorted via 4 big-endian u32 limbs."""
